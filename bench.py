@@ -1,18 +1,24 @@
-"""Round benchmark: transport throughput on the local chip.
+"""Transport throughput benchmark on the local GPU.
 
-Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", ...}.
+Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", ...}
+that names the device it ran on (platform, device kind, count, and the
+card's name and power limit from nvidia-smi).  It refuses to run when
+JAX finds no GPU: a CPU number is never reported as a device metric.
 
-Headline metric: particle pushes/sec/chip over a DRAIN-TO-EMPTY
-transport segment (a full pcut segment of the nonrelativistic DSA
-workload run until every lane is saved or finished, with live-lane
-compaction) — this is the end-to-end number a production run sees, not
-a fixed-step kernel window.  The fixed-window kernel rate (all lanes
-active, the round-1 headline) is reported alongside as
-"kernel_window_pushes_per_sec".
+Headline metric: particle pushes/sec over a DRAIN-TO-EMPTY transport
+segment (a full pcut segment of the nonrelativistic DSA workload run
+until every lane is saved or finished, with live-lane compaction).
+Alongside it:
+  * "kernel_window_pushes_per_sec": a fixed 256-step window with all
+    lanes starting active;
+  * "ladder_pushes_per_sec": one species through the whole pcut
+    ladder via TransportEngine.run_ion (transport, on-device splits,
+    escape binning), on the ladder the engine selects for the batch
+    ("ladder" names it).
 
 Pushes are counted from the actual per-lane step counters (sum of
 nsteps), never from batch x steps, so lanes that finish early are not
-credited (ADVICE.md round 1).
+credited.
 
 The reference publishes no numbers (BASELINE.json "published": {});
 vs_baseline is measured against a documented estimate of the serial
@@ -22,6 +28,7 @@ same transforms + RNG + trig per step).
 
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -30,15 +37,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import jax
 
 jax.config.update("jax_enable_x64", True)
-# persistent XLA cache: the transport kernel compiles once per machine
-_cache = os.environ.get("MCS_CACHE_DIR",
-                        os.path.expanduser("~/.cache/mcs_xla"))
-os.makedirs(_cache, exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", _cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
 REFERENCE_SERIAL_PUSHES_PER_SEC = 2.0e6   # documented estimate, see above
 BATCH = int(os.environ.get("MCS_BENCH_BATCH", 1048576))
@@ -56,7 +60,26 @@ def _auto_levels(b: int) -> int:
     return levels
 
 
-def main() -> None:
+def _nvidia_smi() -> str:
+    """Card name and power limit (queried before JAX opens the card)."""
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    return r.stdout.strip()
+
+
+def main() -> int:
+    smi = _nvidia_smi()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench: no GPU visible to JAX ({dev.platform}); refusing "
+              "to report a device metric", file=sys.stderr)
+        return 1
+    enable_compile_cache()
+
     from montecarloscattering_jl_tpu.engine.run import TransportEngine
     from montecarloscattering_jl_tpu.engine.setup import build_setup
     from montecarloscattering_jl_tpu.models.injection import init_pop
@@ -106,29 +129,21 @@ def main() -> None:
     out = stepsj(fresh(0, BATCH), fresh_tal(BATCH))
     jax.block_until_ready(out)           # compile + warm
 
-    kernel_rate, kernel_pushes = 0.0, 0
+    kernel_rate = 0.0
     for i in range(3):
         s_in, t_in = fresh(i + 1, BATCH), fresh_tal(BATCH)
         t0 = time.time()
         s_out, _ = stepsj(s_in, t_in)
         pushes = int(np.asarray(s_out.nsteps, np.int64).sum())
         dt = time.time() - t0
-        if pushes / dt > kernel_rate:
-            kernel_rate, kernel_pushes = pushes / dt, pushes
+        kernel_rate = max(kernel_rate, pushes / dt)
 
     # ---- drain-to-empty segment rate (the e2e number) ----------------------
-    from montecarloscattering_jl_tpu.ops import pallas_step as pstep
     levels = int(os.environ.get("MCS_BENCH_COMPACT",
                                 _auto_levels(DRAIN_BATCH)))
-    use_mega = pstep.megakernel_ok(ss, P_DTYPE, jnp.float32)
-    if use_mega:
-        def seg(st, tl, gr, sc_, _ss, _lv):
-            return pstep.run_segment_mega(st, tl, gr, sc_, _ss)
-    else:
-        seg = jax.jit(stp.run_segment, static_argnums=(4, 5),
-                      donate_argnums=(0, 1))
-    s_out, _ = seg(fresh(0, DRAIN_BATCH), fresh_tal(DRAIN_BATCH), grids,
-                   sc, ss, levels)
+    s_out, _ = stp.run_segment_jit(fresh(0, DRAIN_BATCH),
+                                   fresh_tal(DRAIN_BATCH), grids, sc, ss,
+                                   levels)
     jax.block_until_ready(s_out)         # compile + warm
 
     drain_rate, drain_pushes = 0.0, 0
@@ -136,7 +151,7 @@ def main() -> None:
     for i in range(n_rep):
         s_in, t_in = fresh(i + 1, DRAIN_BATCH), fresh_tal(DRAIN_BATCH)
         t0 = time.time()
-        s_out, _ = seg(s_in, t_in, grids, sc, ss, levels)
+        s_out, _ = stp.run_segment_jit(s_in, t_in, grids, sc, ss, levels)
         jax.block_until_ready(s_out.nsteps)
         pushes = int(np.asarray(s_out.nsteps, np.int64).sum())
         dt = time.time() - t0
@@ -144,51 +159,27 @@ def main() -> None:
             drain_rate, drain_pushes = pushes / dt, pushes
 
     # ---- full pcut-ladder rate (transport + splits + escape binning) -------
-    # the sustained number a production species pass sees: every pcut
-    # segment of the config, on-device splitting between segments
+    # the sustained number a production species pass sees, through the
+    # ladder TransportEngine.run_ion selects at this batch
+    cfg.n_pts_inj = cfg.n_pts_pcut = cfg.n_pts_pcut_hi = DRAIN_BATCH
+    ladder_setup = build_setup(cfg)
+    ladder_eng = TransportEngine(ladder_setup, p_dtype=P_DTYPE)
+
+    def ladder(i_iter):
+        it = ladder_eng.new_iteration_tallies()
+        res = ladder_eng.run_ion(i_iter, 0, ladder_setup.profile, it)
+        jax.block_until_ready(res.psd)
+        return res.n_pushes
+
+    ladder(0)                            # compile + warm
     ladder_rate = 0.0
-    if use_mega:
-        from montecarloscattering_jl_tpu.ops.finish import EscapeTallies
-        pcuts_h = np.asarray(cfg.pcuts, np.float64)
-        prevs_h = np.concatenate([[0.0], pcuts_h[:-1]])
-        targets_h = np.full(len(pcuts_h), DRAIN_BATCH, np.int64)
-        keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
-            jax.random.key(11),
-            jnp.arange(1, len(pcuts_h) + 1, dtype=jnp.uint32))
+    for i in range(2):
+        t0 = time.time()
+        pushes = ladder(i + 1)
+        ladder_rate = max(ladder_rate, pushes / (time.time() - t0))
 
-        def ladder(seed):
-            esc = EscapeTallies.zeros(setup.bins.n_mom,
-                                      setup.bins.n_theta)
-            out = pstep.run_ion_mega_hybrid(
-                fresh(seed, DRAIN_BATCH), fresh_tal(DRAIN_BATCH), esc,
-                grids, sc, ss, pcuts_h, prevs_h, targets_h, keys)
-            return int(np.asarray(out[4], np.uint64).sum())
-
-        ladder(0)                        # compile + warm
-        for i in range(2):
-            t0 = time.time()
-            pushes = ladder(i + 1)
-            dt = time.time() - t0
-            ladder_rate = max(ladder_rate, pushes / dt)
-
-    # ---- roofline / MFU accounting (honest framing) ------------------------
-    # Effective arithmetic is ~320 FLOPs/push (transforms + scattering
-    # trig + movement + escape tests, hand-counted from the kernel) —
-    # MC transport is intrinsically low-intensity, so effective MFU is
-    # << 1% BY CONSTRUCTION; the work the MXU actually executes is the
-    # one-hot band contraction at band x 128 MACs per crossing record
-    # plus the zone-field gather (128 x 32 per lane-step), and THAT
-    # utilization is the number that says whether the kernel is at its
-    # structural roofline.
-    band = 2048
-    peak_bf16 = 1.97e14     # TPU v5e per-chip peak (bf16 MXU FLOP/s)
-    eff_flops_per_push = 320.0
-    struct_macs_per_push = band * 128 + 128 * 32 * 2
-    best = max(drain_rate, ladder_rate)
-    eff_flops = best * eff_flops_per_push
-    struct_flops = best * struct_macs_per_push * 2
     print(json.dumps({
-        "metric": "drain_to_empty_pushes_per_sec_per_chip",
+        "metric": "drain_to_empty_pushes_per_sec",
         "value": round(drain_rate, 1),
         "unit": "pushes/s",
         "vs_baseline": round(drain_rate / REFERENCE_SERIAL_PUSHES_PER_SEC, 3),
@@ -197,15 +188,14 @@ def main() -> None:
         "drain_batch": DRAIN_BATCH,
         "drain_pushes": drain_pushes,
         "ladder_pushes_per_sec": round(ladder_rate, 1),
+        "ladder": ladder_eng.ladder_path(),
         "n_pcuts": len(cfg.pcuts),
         "compact_levels": levels,
-        "drain_engine": "megakernel" if use_mega else "xla",
-        "effective_flops": round(eff_flops, 1),
-        "mfu_effective": round(eff_flops / peak_bf16, 6),
-        "structural_onehot_flops": round(struct_flops, 1),
-        "mxu_structural_utilization": round(struct_flops / peak_bf16, 4),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices()), "nvidia_smi": smi},
     }))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

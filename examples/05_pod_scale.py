@@ -1,17 +1,15 @@
 """BASELINE.json config 5: large trajectory counts sharded over a
 device mesh.
 
-Shards the particle batch over every available chip ('dp' axis) and
-scales the per-pcut population with the mesh.  On a real pod slice
-this is the 1e9-trajectory path; on this machine it demonstrates the
-identical program on whatever devices exist (including the virtual
-8-device CPU mesh used in CI):
+Shards the particle batch over every available device ('dp' axis)
+and scales the per-pcut population with the mesh — the same program
+on four GPUs or on the virtual 8-device CPU mesh used in CI:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/05_pod_scale.py --per-chip 2048
 
 Determinism note: lane RNG is keyed by global lane index, so the
-physics is bitwise independent of how many chips participate.
+physics is bitwise independent of how many devices participate.
 """
 
 import argparse
@@ -26,6 +24,9 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
@@ -34,6 +35,7 @@ def main() -> None:
     ap.add_argument("--iterations", type=int, default=1)
     ap.add_argument("--f32", action="store_true")
     args = ap.parse_args()
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -1,6 +1,6 @@
-"""TPU-native Monte Carlo diffusive-shock-acceleration framework.
+"""Accelerator Monte Carlo diffusive-shock-acceleration framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 abhro/MonteCarloScattering.jl (nonlinear DSA at 1-D parallel shocks
 with nonthermal photon emission): structure-of-arrays particle batches,
 masked-lane transport kernels, scatter-add phase-space tallies, and a
@@ -11,7 +11,7 @@ Subpackages
 -----------
 utils     constants, parameters, species, config, small solvers
 models    grid / jump conditions / profile / injection / emission physics
-ops       batched TPU transport kernels and reductions
+ops       batched transport kernels and reductions
 parallel  device-mesh sharding, collectives, checkpointing
 engine    run orchestration (iterations, species, pcuts) and outputs
 """

@@ -12,15 +12,21 @@ import sys
 import time
 
 
-def main(argv=None) -> int:
+# --platform choice -> jax_platforms value: JAX names the NVIDIA backend
+# "cuda" ("gpu" would also try to initialize ROCm and fail)
+JAX_PLATFORMS = {"gpu": "cuda", "cpu": "cpu"}
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="montecarloscattering_jl_tpu",
-        description="TPU-native nonlinear Monte Carlo DSA shock runs")
+        description="Nonlinear Monte Carlo DSA shock runs on an "
+                    "accelerator (JAX/XLA)")
     ap.add_argument("config", nargs="?", default="mc_in.toml",
                     help="TOML run configuration (default: mc_in.toml)")
     ap.add_argument("-o", "--out-dir", default=".",
                     help="output directory (default: cwd)")
-    ap.add_argument("--platform", choices=["tpu", "cpu", "default"],
+    ap.add_argument("--platform", choices=[*JAX_PLATFORMS, "default"],
                     default="default", help="force a JAX platform")
     ap.add_argument("--devices", type=int, default=0,
                     help="shard the particle batch over N devices "
@@ -37,8 +43,6 @@ def main(argv=None) -> int:
                          "segment-boundary checkpoint (<path>.mid) "
                          "every N pcut segments so a kill mid-species "
                          "resumes inside the transport ladder")
-    ap.add_argument("--cache-dir", default=None,
-                    help="persistent XLA compilation cache directory")
     ap.add_argument("--no-fused", action="store_true",
                     help="use host-side pcut splitting instead of the "
                          "fused on-device ladder")
@@ -53,7 +57,11 @@ def main(argv=None) -> int:
     ap.add_argument("--process-id", type=int, default=None,
                     help="multi-host: this process's id")
     ap.add_argument("-v", "--verbose", action="store_true")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
@@ -61,11 +69,10 @@ def main(argv=None) -> int:
 
     import jax
     if args.platform != "default":
-        jax.config.update("jax_platforms", args.platform)
-    if args.cache_dir:
-        jax.config.update("jax_compilation_cache_dir", args.cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+        jax.config.update("jax_platforms", JAX_PLATFORMS[args.platform])
     jax.config.update("jax_enable_x64", True)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     import jax.numpy as jnp
 

@@ -194,7 +194,7 @@ def write_mc_out(result, path: str) -> None:
     setup = result.setup
     cfg = setup.cfg
     with open(path, "w") as f:
-        f.write("MonteCarloScattering TPU framework run summary\n\n")
+        f.write("MonteCarloScattering JAX framework run summary\n\n")
         f.write(f"shock: u0={cfg.u0:.6e} cm/s beta0={cfg.beta0:.6f} "
                 f"gamma0={cfg.gamma0:.4f}\n")
         f.write(f"downstream: u2={setup.u2:.6e} cm/s "
@@ -358,6 +358,9 @@ def write_timers(result, out_dir: str) -> None:
             "wall_time_s": round(result.wall_time, 3),
             "pushes_per_sec": round(
                 result.n_pushes / max(result.wall_time, 1e-9), 1),
+            # MCS_SUBTIMERS=1 transport split (pop_setup / ladder /
+            # tally_fetch seconds)
+            "subtimers": result.subtimers,
         })
 
 

@@ -6,7 +6,7 @@ remain the oracle — tests/test_device_emission.py pins these outputs
 bin-for-bin against them.  The device design is *batched over zones*
 rather than looped: for IC and pion decay the (particle-bin x
 photon-bin) kernel is zone-independent, so the whole grid collapses to
-ONE matmul `counts[zones, p] @ K[p, gamma]` on the MXU instead of a
+ONE matmul `counts[zones, p] @ K[p, gamma]` instead of a
 per-zone triple loop; synchrotron keeps per-zone B in a vmapped outer
 product; the Doppler shift becomes one batched scatter-add.
 
@@ -23,6 +23,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ...utils.constants import C_CGS, GEV_ERG, HBAR_CGS, ME_C2, ME_CGS, QE_CGS
 from ...utils.params import E_REL_PT
@@ -107,7 +108,8 @@ def ic_grid_device(ne_z, p_edges, alpha_out, seed_field, mc: float,
     # floor the oracle applies pre-sum; approximate with the summed
     # kernel (the contributions span decades, so the floor only
     # matters in empty corners)
-    d2n = w @ k_po                                # [nz, n_out]
+    d2n = jnp.matmul(w, k_po,
+                     precision=lax.Precision.HIGHEST)   # [nz, n_out]
     beam_area = 4.0 * math.pi * dist_lum**2 * max(jet_sph_frac, 1e-12)
     e_out = alpha_out * ME_C2
     emis = d2n / beam_area / ME_C2 * e_out[None, :] ** 2
@@ -158,7 +160,8 @@ def pion_grid_device(counts_z, p_edges, e_gamma, target_z, aa: float,
     @jax.jit
     def contract(counts_z, target_z, kern):
         w = jnp.where(counts_z > 1.0e-99, counts_z, 0.0)
-        emis = (w @ kern) * target_z[:, None] * scaling
+        emis = (jnp.matmul(w, kern, precision=lax.Precision.HIGHEST)
+                * target_z[:, None] * scaling)
         return jnp.where(emis < 1.0e-99, 1.0e-99, emis).T
 
     return contract(jnp.asarray(counts_z), jnp.asarray(target_z),

@@ -37,9 +37,9 @@ N_COS_BINS = 180   # Doppler-shift angle resolution (get_summed:111)
 
 
 def jnp_f64(a):
-    """Device array in f64 (emission runs in full precision — it is
-    ~1 s of a 140 s SED run; parity with the NumPy oracle matters more
-    than emulated-f64 speed on TPU)."""
+    """Device array in f64 (emission runs in full IEEE f64 precision:
+    the CGS magnitudes reach ~1e118, beyond f32's exponent range, and
+    parity with the NumPy oracle matters more than f32 speed)."""
     import jax.numpy as jnp
     return jnp.asarray(np.asarray(a), jnp.float64)
 
@@ -154,35 +154,6 @@ def merge_total(pion_shell, synch_shell, ic_shell) -> tuple[np.ndarray,
     return e_tot, tot
 
 
-def _f64_host(fn):
-    """Run `fn`'s jitted kernels on the in-process CPU device when the
-    default backend cannot represent full-range f64.
-
-    TPU f64 is float32-PAIR emulation: the exponent range is f32's,
-    so the CGS magnitudes of the emission pass (zone counts ~ 1e118,
-    beam areas ~ 1e56 cm^2) become inf on IDENTITY transfer alone
-    (probed on the v5e backend: jnp.float64(1e40) -> inf, and the
-    round-8 on-chip SED came out empty through exactly this).  The
-    kernels are the same jitted XLA code either way — the whole SED
-    is seconds of compute — just with real IEEE f64 on the host
-    device.  A TPU-resident emission path would need log-space or
-    rescaled-unit arithmetic end to end."""
-    import contextlib
-    import functools
-
-    @functools.wraps(fn)
-    def wrap(*a, **k):
-        import jax as _jax
-        if _jax.default_backend() != "cpu":
-            ctx = _jax.default_device(_jax.devices("cpu")[0])
-        else:
-            ctx = contextlib.nullcontext()
-        with ctx:
-            return fn(*a, **k)
-    return wrap
-
-
-@_f64_host
 def photon_calcs(setup, prof, ion_finals, i_iter: int = 0
                  ) -> EmissionResult:
     """Full emission pass for one iteration (photon_calcs.jl:27-161)."""

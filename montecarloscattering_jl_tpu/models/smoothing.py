@@ -89,8 +89,7 @@ def _rescale(u_new: np.ndarray, lo: int, hi: int, u0: float, u2: float,
     conditions.  The round-7 gamma0=5 science run hit exactly this:
     fac = 0 silently flattened the WHOLE profile to u2, the
     old-profile averaging then relaxed the far-upstream inflow toward
-    u2 by half per iteration, and the shock evaporated (STATUS.md
-    round 7).  Callers keep the previous profile instead."""
+    u2 by half per iteration, and the shock evaporated.  Callers keep the previous profile instead."""
     avg_dw = u_new[hi - 9:hi + 1].mean()
     denom = u_new[lo] - avg_dw
     if abs(denom) < 1e-3 * abs(u0 - u2):

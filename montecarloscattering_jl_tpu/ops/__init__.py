@@ -1,3 +1,3 @@
-"""TPU transport kernels: batched helix stepping, tallies, reductions."""
+"""Transport kernels: batched helix stepping, tallies, reductions."""
 
 from . import scattering, state, step, transforms  # noqa: F401

@@ -18,8 +18,11 @@ mesh shape (tests/test_parallel.py).
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 
 from .finish import EscapeTallies, finish_particles
@@ -27,8 +30,8 @@ from .state import ACTIVE, FINISHED, SAVED, ParticleState, Tallies
 from .step import SegmentGrids, SegmentScalars, StepStatic, run_segment
 
 
-def split_on_device(state: ParticleState, n_target, seg_key,
-                    lane_offset=0) -> tuple[ParticleState, jnp.ndarray]:
+def split_on_device(state: ParticleState, n_target, seg_key
+                    ) -> tuple[ParticleState, jnp.ndarray]:
     """Build the next pcut population from SAVED lanes without leaving
     the device (new_pcut, cuts.jl:34-98; host twin: ops/cuts.py).
 
@@ -37,11 +40,6 @@ def split_on_device(state: ParticleState, n_target, seg_key,
     produces in the host splitter.  Returns (new state, n_new) where
     n_new = n_saved * i_mult; with nothing saved every lane comes out
     FINISHED with zero weight (and subsequent segments no-op).
-
-    ``lane_offset`` shifts the per-lane RNG fold-in index: under a
-    device mesh each shard splits its own lanes, and keys must be
-    derived from the GLOBAL lane index (offset = shard * shard_b) so
-    no two shards reuse a stream (parallel/shard.sharded_hybrid_seg).
     """
     b = state.weight.shape[0]
     saved = state.status == SAVED
@@ -56,8 +54,7 @@ def split_on_device(state: ParticleState, n_target, seg_key,
     g = lambda a: a[src]
     p_dtype = state.pb.dtype
     lane_keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
-        seg_key,
-        jnp.arange(b, dtype=jnp.uint32) + jnp.uint32(lane_offset))
+        seg_key, jnp.arange(b, dtype=jnp.uint32))
 
     new = ParticleState(
         weight=jnp.where(valid, g(state.weight) / i_mult,
@@ -122,8 +119,7 @@ _XLA_HYBRID_CACHE = {}
 
 def _get_xla_seg(ss, compact_levels: int):
     """One pcut segment as ONE jitted device program
-    [run_segment -> finish -> split] — the XLA twin of the megakernel
-    hybrid ladder (ops/pallas_step._get_hybrid_seg)."""
+    [run_segment -> finish -> split]."""
     key = (ss, compact_levels)
     if key in _XLA_HYBRID_CACHE:
         return _XLA_HYBRID_CACHE[key]
@@ -159,33 +155,72 @@ def _get_xla_fin(ss):
     return f
 
 
+def drive_ladder_async(dispatch, n_seg: int, check=None):
+    """Host loop over pcut segments WITHOUT a per-segment host sync:
+    a blocking fetch drains the dispatch pipeline, so an
+    int(n_new)-per-pcut loop would serialize [sync -> dispatch ->
+    drain] once per segment.  The reference's pcut_finalize early
+    break (cuts.jl:115-119) is instead checked every
+    MCS_HYBRID_SYNC_EVERY segments (0 = never): a segment dispatched
+    after the chain died is a cheap no-op — the split leaves every
+    lane FINISHED with zero weight, the drain exits on its first trip,
+    and finish_particles masks weight > 0 — so over-dispatching a few
+    dead segments is cheaper than syncing on every live one.
+
+    ``dispatch(i)`` runs segment i and returns (n_new, nsteps) device
+    scalars (any integer/float dtype; pushes < 2^53 so the uint64
+    conversion is exact).  ``check(i)`` (optional) runs at the sync
+    points, after the pipeline has drained on int(n_new), so an
+    in-flight failure check raises within MCS_HYBRID_SYNC_EVERY
+    segments.
+
+    Returns (n_new[n_seg] int64, nsteps[n_seg] uint64) with segments
+    past the first die-out reported as the zeros they were."""
+    sync_every = int(os.environ.get("MCS_HYBRID_SYNC_EVERY", "8"))
+    n_new_d: list = []
+    nsteps_d: list = []
+    for i in range(n_seg):
+        n_new, nsteps = dispatch(i)
+        n_new_d.append(n_new)
+        nsteps_d.append(nsteps)
+        if sync_every and (i + 1) % sync_every == 0:
+            dead = int(n_new) == 0
+            if check is not None:
+                check(i)
+            if dead:
+                break
+
+    n_done = len(n_new_d)
+    n_new_out = np.zeros(n_seg, np.int64)
+    nsteps_out = np.zeros(n_seg, np.uint64)
+    if n_new_d:
+        n_new_out[:n_done] = np.asarray(jnp.stack(n_new_d), np.int64)
+        nsteps_out[:n_done] = np.asarray(
+            jnp.stack(nsteps_d)).astype(np.uint64)
+    # report the same tail as the host splitter: segments past the
+    # first die-out ran as no-ops and stay zero
+    dead = np.flatnonzero(n_new_out[:n_done] == 0)
+    if dead.size:
+        n_new_out[dead[0] + 1:] = 0
+        nsteps_out[dead[0] + 1:] = 0
+    return n_new_out, nsteps_out
+
+
 def run_ion_xla_hybrid(state, tallies, esc, grids, sc, ss,
                        pcuts, pcut_prevs, n_targets, seg_keys,
                        compact_levels: int = 0):
     """The whole pcut ladder as a host loop of per-segment device
-    programs (one ~25 ms dispatch per pcut — negligible next to
-    segment drain time).
-
-    This REPLACES the round-2 "blocked ladder" workaround for the
-    >= 128k fused-scan runtime fault: a single-segment program at
-    262k lanes is solid (bench drain), only the 45-segment lax.scan
-    program faulted, so the fix is to not build that program.  Also
-    removes the block-divided split-target truncation the blocked
-    path had.  Segments are async-dispatched through the shared
-    ops/pallas_step.drive_ladder_async (chain-death break checked
-    every MCS_HYBRID_SYNC_EVERY segments, dead segments are no-ops)
-    so this path pays the same ~1 dispatch/pcut as the megakernel
-    hybrid instead of a [sync -> dispatch -> drain] serialization.
-    Returns (state, tallies, esc, n_new, nsteps)."""
-    import numpy as np
-
-    from ..utils.params import MAX_HELIX_STEPS
-    from .pallas_step import drive_ladder_async
-    from .step import run_segment_chunked, xla_steps_per_prog
+    programs (one dispatch per pcut — negligible next to segment drain
+    time), for batches above MCS_FUSED_MAX_BATCH where the engine does
+    not build the whole-ladder lax.scan program.  Segments are
+    async-dispatched through drive_ladder_async (chain-death break
+    checked every MCS_HYBRID_SYNC_EVERY segments, dead segments are
+    no-ops).  Returns (state, tallies, esc, n_new, nsteps)."""
+    from .step import chunked_drain, run_segment_chunked
 
     # deep helix caps: host-chunked drains (no single device program
-    # may run for minutes — TPU worker crash, STATUS round 7)
-    chunked = 0 < xla_steps_per_prog() < MAX_HELIX_STEPS
+    # runs more than MCS_XLA_STEPS_PER_PROG while-trips)
+    chunked = chunked_drain()
     if chunked:
         fin_fn = _get_xla_fin(ss)
     else:

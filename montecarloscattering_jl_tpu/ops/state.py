@@ -22,9 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 
 # Position/PRP/time dtype.  float64 by contract (the grid spans 14
-# decades with 1e30 sentinels; x += dx accumulates ~1e4 fine steps) —
-# f64 is EMULATED on TPU (no native ALUs), so this knob exists to
-# measure its cost and for short-grid runs that tolerate f32.
+# decades with 1e30 sentinels; x += dx accumulates ~1e4 fine steps);
+# this knob exists to measure the cost of f64 positions and for
+# short-grid runs that tolerate f32.
 X_DTYPE = (jnp.float32 if os.environ.get("MCS_X_DTYPE", "f64") == "f32"
            else jnp.float64)
 
@@ -81,27 +81,24 @@ class Tallies(NamedTuple):
     """Per-segment accumulators.
 
     *_diff arrays are difference-form over the boundary axis (length
-    nb + 1); `finalize_tallies` prefix-sums them.  TPU scatter calls
-    dominate the step cost, so tallies are packed:
+    nb + 1); `finalize_tallies` prefix-sums them.  Tallies are packed
+    so one flush updates them all:
       * flux_diff [4, nb+1]: (pxx, pxz, energy, n_crossings) — all four
-        share crossing indices and accumulate via ONE one-hot matmul on
-        the MXU per step.
+        share crossing indices and accumulate via ONE one-hot range
+        contraction per flush.
       * psd_diff [(n_mom+1)*2*(n_theta+1), nb+1]: the CR and thermal
         histograms share one flat cell axis ordered (ip, kind, jt)
         with kind 0 = injected (CR), 1 = thermal (lanes are exclusively
-        one or the other).  ip-major ordering keeps one flush window's
-        cells in a narrow contiguous band (a pcut segment spans a
-        decade or two of momentum), which is what lets the Pallas MXU
-        histogram (ops/pallas_hist.py) replace the scatter on TPU.
+        one or the other), so one scatter pair updates both.
     """
 
     flux_diff: jnp.ndarray      # [4, nb+1] float64
     psd_diff: jnp.ndarray       # [(n_mom+1)*2*(n_theta+1), nb+1]
     pool_diff: jnp.ndarray      # [nb+1] donated ion energy [erg]
-    # chunked tally record buffer: every TPU scatter/dynamic-update op
-    # carries a flat ~0.1-1 ms overhead, so per-step crossing records
+    # chunked tally record buffer: per-step crossing records
     # accumulate here with ONE dynamic write per step and flush once
-    # per `chunk` steps (ops/step._flush_records).  Rows: 4 flux
+    # per `chunk` steps (ops/step._flush_records), so the scatters run
+    # once per chunk instead of once per step.  Rows: 4 flux
     # channels, psd weight, then lo/hi/psd-base indices stored exactly
     # as floats (all < 2^24).
     rec: jnp.ndarray            # [chunk, 8, B]

@@ -1,4 +1,4 @@
-"""Fused batched transport step: the TPU replacement for the
+"""Fused batched transport step: the accelerator replacement for the
 reference's per-particle helix loop.
 
 One call to `helix_step` advances every lane of a ParticleState by one
@@ -159,16 +159,6 @@ class StepStatic:
     # (frg_alpha - 1); frg_rg0_cm = 0 selects the standard eta*r_g
     frg_alpha: float = 1.0
     frg_rg0_cm: float = 0.0
-    # static band width for the Pallas MXU histogram (0 = use the XLA
-    # scatter); set via pallas_hist.hist_band_for on TPU backends
-    hist_band: int = 0
-    # megakernel per-step tally-band width in cells, derived from the
-    # config's physics by pallas_step.derive_mega_band (the shock-frame
-    # crossing momenta of a scattering-isotropized population span
-    # (1+beta0)/(1-beta0) across pitch angles — ~2 decades at gamma0=5,
-    # transformers.jl:440-476); 0 = the 2048-cell nonrelativistic
-    # default (MCS_MEGA_BAND env override)
-    mega_band: int = 0
 
 
 def _mod2pi(x):
@@ -212,16 +202,18 @@ def helix_step(state: ParticleState, tallies: Tallies,
     u = _lane_uniforms(state)
 
     # ---- gather zone fields ------------------------------------------------
-    # all eight zone fields arrive through ONE one-hot matmul (gathers
-    # carry flat per-op launch overhead on TPU; a [B, nb] x [nb, 8]
-    # contraction rides the MXU); the stack is loop-invariant/hoisted
+    # all eight zone fields arrive through ONE one-hot [B, nb] x [nb, 8]
+    # contraction (the stack is loop-invariant/hoisted).  HIGHEST keeps
+    # the f32 product exact: the default lets the GPU round operands
+    # to TF32 (10 mantissa bits), which would perturb zone velocities.
     ig = state.igrid
     zstack = jnp.stack([grids.ux, grids.uz, grids.utot, grids.gamma_sf,
                         grids.gamma_ef, grids.btot, grids.b_cos,
                         grids.b_sin], axis=1)          # [nb, 8]
     ig_oh = jax.nn.one_hot(ig, ss.nb, dtype=zstack.dtype)
     zf = jnp.einsum("bn,nf->bf", ig_oh, zstack,
-                    preferred_element_type=zstack.dtype)  # [B, 8]
+                    preferred_element_type=zstack.dtype,
+                    precision=lax.Precision.HIGHEST)    # [B, 8]
     ux, uz, utot, gsf = zf[:, 0], zf[:, 1], zf[:, 2], zf[:, 3]
     gef, bmag, bcos, bsin = zf[:, 4], zf[:, 5], zf[:, 6], zf[:, 7]
 
@@ -530,8 +522,7 @@ def helix_step(state: ParticleState, tallies: Tallies,
                           ss.theta_min, ss.bins_per_dec_theta, ss.n_theta)
     psd_w = (weight * abs_inv_vx * crossed).astype(tallies.psd_diff.dtype)
     # CR and thermal histograms share one flat (ip, kind, jt) cell
-    # axis; kind 0 = injected (CR), 1 = thermal.  ip-major order keeps
-    # a flush window's cells in a narrow band (ops/pallas_hist.py).
+    # axis; kind 0 = injected (CR), 1 = thermal.
     kind = (~inj).astype(jnp.int32)
     cell = (ip_sk * 2 + kind) * (ss.n_theta + 1) + jt_sk
 
@@ -686,10 +677,9 @@ def helix_step(state: ParticleState, tallies: Tallies,
 
 def _flush_records(t: Tallies, ss: StepStatic) -> Tallies:
     """Flush the chunked crossing records into the tally arrays: one
-    signed one-hot MXU contraction for the four flux channels and the
-    (p, theta, zone) histogram update — the Pallas band-matmul kernel
-    on TPU (ops/pallas_hist.py), or the flat scatter pair elsewhere —
-    per chunk of steps instead of per step."""
+    signed one-hot range contraction for the four flux channels and a
+    flat scatter pair for the (p, theta, zone) histogram, per chunk of
+    steps instead of per step."""
     lo = t.rec[:, 5, :].reshape(-1).astype(jnp.int32)
     hi = t.rec[:, 6, :].reshape(-1).astype(jnp.int32)
     cell = t.rec[:, 7, :].reshape(-1).astype(jnp.int32)
@@ -697,22 +687,19 @@ def _flush_records(t: Tallies, ss: StepStatic) -> Tallies:
     range_oh = (jax.nn.one_hot(lo, ss.nb + 1, dtype=dtype)
                 - jax.nn.one_hot(hi + 1, ss.nb + 1, dtype=dtype))
     vals = jnp.moveaxis(t.rec[:, :4, :], 1, 0).reshape(4, -1)
+    # HIGHEST: the flux tallies feed the smoothing solve; a TF32
+    # product would keep ~3 decimal digits of each record
     delta = jnp.einsum("cb,bn->cn", vals, range_oh,
-                       preferred_element_type=dtype)
+                       preferred_element_type=dtype,
+                       precision=lax.Precision.HIGHEST)
     flux_diff = t.flux_diff + delta.astype(jnp.float64)
 
     w = t.rec[:, 4, :].reshape(-1).astype(t.psd_diff.dtype)
-    nzc = ss.nb + 1
-    if ss.hist_band > 0:
-        from .pallas_hist import psd_accumulate
-        psd = psd_accumulate(t.psd_diff, cell, lo, hi, w, ss.hist_band,
-                             seed=t.step_phase)
-    else:
-        psd_flat = t.psd_diff.reshape(-1)
-        base = cell * nzc
-        psd_flat = psd_flat.at[base + lo].add(w)
-        psd_flat = psd_flat.at[base + hi + 1].add(-w)
-        psd = psd_flat.reshape(t.psd_diff.shape)
+    base = cell * (ss.nb + 1)
+    psd_flat = t.psd_diff.reshape(-1)
+    psd_flat = psd_flat.at[base + lo].add(w)
+    psd_flat = psd_flat.at[base + hi + 1].add(-w)
+    psd = psd_flat.reshape(t.psd_diff.shape)
 
     return t._replace(
         flux_diff=flux_diff,
@@ -738,14 +725,12 @@ def run_segment(state: ParticleState, tallies: Tallies,
     segment.  Because every ACTIVE lane steps on every while trip,
     all active lanes share one nsteps value, so this bounds the TRIP
     count of the device program — the host-chunked drain for deep
-    helix caps (a single device program executing for minutes kills
-    the TPU worker; see ops/pallas_step._get_launch).  Use
-    run_segment_chunked for the host loop.
+    helix caps.  Use run_segment_chunked for the host loop.
 
     compact_levels > 0 turns on live-lane compaction: lanes die at
     wildly different step counts (most thermal lanes escape within
     ~1e2 steps while a few accelerate for ~1e4), and a plain batched
-    while_loop burns full-batch VPU work until the LAST lane drains.
+    while_loop burns full-batch work until the LAST lane drains.
     The ladder runs the loop on a static window, and whenever the
     active population falls below the next half-size it partitions
     active lanes to the front (stable sort) and continues on the front
@@ -772,7 +757,8 @@ def run_segment(state: ParticleState, tallies: Tallies,
     sizes = [b]
     for _ in range(max(compact_levels, 0)):
         nxt = sizes[-1] // 2
-        # keep windows lane-aligned and big enough to feed the VPU
+        # keep windows 128-lane aligned and big enough to fill the
+        # device
         if nxt < 512 or nxt % 128 != 0:
             break
         sizes.append(nxt)
@@ -860,11 +846,15 @@ run_segment_hjit = jax.jit(run_segment, static_argnums=(4, 5),
 
 
 def xla_steps_per_prog() -> int:
-    """Per-program trip budget for the XLA engine's host-chunked
-    drains (0 disables chunking).  Engaged when MAX_HELIX_STEPS
-    exceeds it: deep-cap while_loops must not run as one device
-    program (TPU worker crash, STATUS round 7)."""
+    """Per-program trip budget for the host-chunked drains (0 disables
+    chunking).  Engaged when MAX_HELIX_STEPS exceeds it, so a deep-cap
+    segment runs as a sequence of bounded device programs."""
     return int(os.environ.get("MCS_XLA_STEPS_PER_PROG", "25000"))
+
+
+def chunked_drain() -> bool:
+    """Whether segment drains run host-chunked at the current cap."""
+    return 0 < xla_steps_per_prog() < MAX_HELIX_STEPS
 
 
 def run_segment_chunked(state: ParticleState, tallies: Tallies,

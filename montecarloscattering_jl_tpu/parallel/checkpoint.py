@@ -15,11 +15,10 @@ SURVEY.md section 5.4).  Two granularities:
   particle population (including per-lane RNG key/step counters, the
   determinism anchor per SURVEY.md section 5.2), the pcut segment
   index, the per-ion tally accumulators, the iteration tallies, and
-  the completed species' reduction products — so a pod-scale run whose
-  long pole is ONE species' transport ladder can resume inside it
-  (VERDICT r3 item 6).  Segment boundaries are the natural cut: state
-  is host-visible there on the host-split path and pipeline-drained at
-  the hybrid ladder's sync points.
+  the completed species' reduction products — so a run whose long
+  pole is ONE species' transport ladder can resume inside it.  Segment
+  boundaries are the natural cut: state is host-visible there on the
+  host-split path.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Multi-host scale-out: jax.distributed over the particle batch.
 
 SURVEY.md section 5.8 prescribes "a `jax.distributed` + pjit/shard_map
-layer over a 1-D (or 2-D batch x host) device mesh" as the TPU-native
+layer over a 1-D (or 2-D batch x host) device mesh" as the accelerator
 equivalent of the reference's (vestigial) OpenMP parallelism
 (main_loops.jl:227).  Data parallelism over particles is the only
 strategy the physics admits; this module adds the multi-PROCESS story
@@ -10,8 +10,8 @@ on top of parallel/shard.py:
   * `init_distributed` wires the process into the jax.distributed
     cluster (coordinator + process id), after which `jax.devices()`
     spans every host and the existing `make_mesh()` builds a global
-    1-D 'dp' mesh.  Tally psums ride ICI inside a host and DCN across
-    hosts — XLA inserts the hierarchy from the mesh.
+    1-D 'dp' mesh.  Tally psums cross the process boundary where the
+    mesh does — XLA inserts the collectives from the mesh.
   * `global_state` turns the host-built (replicated) population into a
     global array sharded over the mesh.  Every process builds the SAME
     full population from the same seeds (lane keys derive from GLOBAL
@@ -20,10 +20,10 @@ on top of parallel/shard.py:
     the multi-host extension of the mesh-shape-invariance contract
     (tests/test_parallel.py).
 
-Environment defaults follow the JAX convention: on real multi-host
-TPU slices `jax.distributed.initialize()` auto-detects everything; the
-explicit arguments exist for CPU testing (tests/test_multihost.py
-drives 2 local processes over a virtual 8-device mesh).
+Nothing on a plain GPU host tells JAX of a cluster, so the
+coordinator address, process count and process id are passed
+explicitly (tests/test_multihost.py drives 2 local CPU processes over
+a virtual 8-device mesh).
 """
 
 from __future__ import annotations
@@ -40,8 +40,10 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Join the jax.distributed cluster (no-op if already initialized).
 
-    On TPU pods all arguments auto-detect; pass them explicitly for
-    CPU/multi-process testing.
+    Unless the platform is pinned to the CPU, each process opens only
+    local card ``process_id`` (``local_device_ids``): one process per
+    card on one host, because a second JAX process on a card the first
+    holds fails for want of device memory.
     """
     # jax.process_count() would itself initialize the backend; use the
     # side-effect-free probe
@@ -51,6 +53,9 @@ def init_distributed(coordinator_address: str | None = None,
     if coordinator_address is not None:
         kw = dict(coordinator_address=coordinator_address,
                   num_processes=num_processes, process_id=process_id)
+        platforms = (jax.config.jax_platforms or "").lower()
+        if process_id is not None and not platforms.startswith("cpu"):
+            kw["local_device_ids"] = [process_id]
     jax.distributed.initialize(**kw)
 
 
@@ -78,15 +83,6 @@ def _put_leaf(x, mesh: Mesh, spec: P):
         x.shape, NamedSharding(mesh, spec), lambda idx: x[idx])
 
 
-def globalize(tree, specs, mesh: Mesh):
-    """Host-replicated pytree -> global arrays placed per the matching
-    PartitionSpec pytree (every process must hold identical values —
-    each serves the shards living on its local devices).  Use for the
-    hybrid ladder's stacked accumulators (parallel/shard.
-    _stacked_tally_spec) and any other sharded inputs on pods."""
-    return jax.tree.map(lambda x, s: _put_leaf(x, mesh, s), tree, specs)
-
-
 def global_state(state, mesh: Mesh):
     """Host-replicated population -> global array sharded over lanes.
 
@@ -94,8 +90,3 @@ def global_state(state, mesh: Mesh):
     seeds); each serves the shards that live on its local devices.
     """
     return jax.tree.map(lambda x: _put_leaf(x, mesh, P(DP_AXIS)), state)
-
-
-def replicated(x, mesh: Mesh):
-    """Place a host array (or PRNG key array) replicated over the mesh."""
-    return _put_leaf(x, mesh, P())

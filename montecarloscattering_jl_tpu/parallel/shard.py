@@ -2,19 +2,17 @@
 
 The reference is serial with vestigial OpenMP comments
 (main_loops.jl:227, all_flux.jl:154); SURVEY.md sections 2/5.8 define
-the TPU-native equivalent: shard the particle batch over a 1-D device
+the accelerator equivalent: shard the particle batch over a 1-D device
 mesh ('dp' axis), run each shard's helix while_loop independently (no
 collectives in the hot loop — lanes are independent between tallies),
-and psum the tally pytree once per segment over ICI.  TP/PP/SP/EP have
-no counterpart in this workload (recorded N/A by design).
+and psum the tally pytree once per segment.  TP/PP/SP/EP have no
+counterpart in this workload (recorded N/A by design).  The devices
+are joined all to all, so the mesh needs no topology shaping.
 
 Determinism: lane RNG keys are derived from the GLOBAL lane index
-before sharding, so per-lane trajectories are bitwise independent of
-the mesh shape on the host-split paths (sharded_run_segment /
-sharded_segment_mega).  The sharded hybrid ladder
-(sharded_hybrid_seg) splits per shard and is statistically — not
-bitwise — mesh-shape invariant; see its docstring and
-docs/design.md "Mesh hybrid ladder".
+before sharding and the engine splits pcut populations on the host
+between segments, so per-lane trajectories are bitwise independent of
+the mesh shape; only the tally summation order differs.
 """
 
 from __future__ import annotations
@@ -22,7 +20,6 @@ from __future__ import annotations
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -80,235 +77,12 @@ def sharded_run_segment(mesh: Mesh, ss: stp.StepStatic,
     def seg(state, tallies, grids, sc):
         s, t = stp.run_segment(state, tallies, grids, sc, ss,
                                compact_levels)
-        # one ICI reduction per segment: the analogue of the
-        # reference's "omp critical" tally sections
+        # one reduction per segment: the analogue of the reference's
+        # "omp critical" tally sections
         t = jax.tree.map(lambda x: jax.lax.psum(x, DP_AXIS), t)
         return s, t
 
     return jax.jit(seg, donate_argnums=(0, 1))
-
-
-def sharded_segment_mega(mesh: Mesh, ss: stp.StepStatic,
-                         n_tallies_cells: int, n_steps: int = 0,
-                         interpret: bool = False):
-    """Megakernel segment under the mesh: each shard drains its own
-    lane block with the Pallas drive (ops/pallas_step), tallies
-    psum-reduced over ICI once per segment.
-
-    Per-lane trajectories are bitwise independent of the mesh shape
-    (the in-kernel threefry is keyed by per-lane key data derived from
-    the GLOBAL lane index, counter = per-lane step count); only tally
-    summation order differs.  Shard size must be a multiple of the
-    megakernel block (ROWS*128 lanes).
-
-    Returns f(state, tallies, grids, sc, seed) ->
-    (state, tallies, oob)."""
-    import os
-
-    from ..ops import pallas_step as ps
-
-    state_spec = _state_spec()
-    tally_spec = stt.Tallies(*[P() for _ in stt.Tallies._fields])._replace(
-        rec=P(None, None, DP_AXIS))
-    band, _acc, n_cells_pad = ps._tally_geom(n_tallies_cells,
-                                             ss.mega_band)
-    n_steps = n_steps or ps._STEPS
-
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=(state_spec, tally_spec, P(), P(), P()),
-             out_specs=(state_spec, tally_spec, P()),
-             check_vma=False)
-    def seg(state, tallies, grids, sc, seed_f):
-        xg, zs, et, tail = ps._mega_prep(
-            jnp.asarray(grids.x_grid), jnp.asarray(grids.ux),
-            jnp.asarray(grids.gamma_sf), jnp.asarray(grids.gamma_ef),
-            jnp.asarray(grids.btot), jnp.asarray(grids.eps_target),
-            jnp.asarray(grids.recv_prefix), nb=int(ss.nb))
-        tcv = jnp.asarray(grids.tcuts).astype(jnp.float32)
-        s, t, oob = ps.mega_segment_traced(
-            state, tallies, jnp.asarray(grids.x_grid), xg, zs, et,
-            tail, tcv, seed_f, sc, ss, band, n_cells_pad, n_steps,
-            interpret=interpret)
-        t = jax.tree.map(lambda x: jax.lax.psum(x, DP_AXIS), t)
-        return s, t, jax.lax.psum(oob, DP_AXIS)
-
-    return jax.jit(seg, donate_argnums=(0, 1))
-
-
-def _stacked_tally_spec() -> stt.Tallies:
-    """Specs for per-shard tally accumulators with a leading device
-    axis (see stack_ion_accumulators)."""
-    return stt.Tallies(*[P(DP_AXIS) for _ in stt.Tallies._fields]
-                       )._replace(rec=P(None, None, DP_AXIS))
-
-
-def stack_ion_accumulators(tal: stt.Tallies, esc, n: int):
-    """Per-shard accumulators for the sharded hybrid ladder.
-
-    Tally/escape fields are plain sums with no lane axis.  Across the
-    ~45 donated segment programs of one ion they must accumulate
-    per-shard — a psum per segment would re-reduce the already-summed
-    carry and multiply earlier contributions by the mesh size — so each
-    shard owns row d of a stacked [n, ...] array and ONE reduction at
-    ion end (reduce_ion_accumulators) replaces the per-segment psum.
-    The `rec` scratch keeps its lane axis and shards with the batch.
-    """
-    tal_st = stt.Tallies(**{
-        k: (getattr(tal, k) if k == "rec"
-            else jnp.zeros((n,) + getattr(tal, k).shape,
-                           getattr(tal, k).dtype))
-        for k in stt.Tallies._fields})
-    esc_st = jax.tree.map(
-        lambda x: jnp.zeros((n,) + x.shape, x.dtype), esc)
-    return tal_st, esc_st
-
-
-@jax.jit
-def reduce_ion_accumulators(tal_st: stt.Tallies, esc_st):
-    """Sum the per-shard accumulator rows (one device program, run
-    once per ion before the tally fetch)."""
-    tal = stt.Tallies(**{
-        k: (getattr(tal_st, k) if k == "rec"
-            else getattr(tal_st, k).sum(axis=0))
-        for k in stt.Tallies._fields})
-    esc = jax.tree.map(lambda x: x.sum(axis=0), esc_st)
-    return tal, esc
-
-
-def sharded_hybrid_seg(mesh: Mesh, ss: stp.StepStatic,
-                       n_tallies_cells: int, n_steps: int = 0,
-                       interpret: bool = False):
-    """One pcut segment of the megakernel hybrid ladder under the
-    mesh: [drain -> escape binning -> per-shard split] as ONE jitted
-    shard_map program (the mesh twin of
-    ops/pallas_step._get_hybrid_seg).
-
-    Each shard drains its own lane block with the Pallas drive and
-    splits its own SAVED lanes to ``n_target / mesh.size`` (remainder
-    spread over the low shards, so the global target is exact).  Lane
-    RNG keys fold in the GLOBAL lane index (axis_index * shard_b
-    offset), so no two shards share a stream.  Unlike the host-split
-    mesh path, lane placement after a split depends on which shard
-    saved a lane — statistically equivalent, not bitwise
-    mesh-shape-invariant (tests/test_mesh_hybrid.py pins both
-    properties).
-
-    Tallies/escapes accumulate per-shard in stacked [size, ...] rows
-    (stack_ion_accumulators); n_new / nsteps / oob come back psum'd.
-
-    Returns f(state, tal_st, esc_st, grids, sc, xg, zs, et, tail,
-    seed_f, n_target, key) ->
-    (state, tal_st, esc_st, n_new, nsteps_f64, oob)."""
-    import os
-
-    from ..ops import pallas_step as ps
-    from ..ops.finish import EscapeTallies, finish_particles
-    from ..ops.fused_ion import split_on_device
-
-    state_spec = _state_spec()
-    tally_spec = _stacked_tally_spec()
-    esc_spec = EscapeTallies(
-        *[P(DP_AXIS) for _ in EscapeTallies._fields])
-    band, _acc, n_cells_pad = ps._tally_geom(n_tallies_cells,
-                                             ss.mega_band)
-    n_steps = n_steps or ps._STEPS
-    size = mesh.size
-
-    @partial(jax.shard_map, mesh=mesh,
-             in_specs=(state_spec, tally_spec, esc_spec,
-                       P(), P(), P(), P(), P(), P(), P(), P(), P()),
-             out_specs=(state_spec, tally_spec, esc_spec,
-                        P(), P(), P()),
-             check_vma=False)
-    def seg(st, tl, es, grids, sc, xg, zs, et, tail, seed_f,
-            n_target, key):
-        d = jax.lax.axis_index(DP_AXIS)
-        # stacked rows arrive [1, ...] per shard; rec keeps its lanes
-        tl_l = stt.Tallies(**{
-            k: (getattr(tl, k) if k == "rec" else getattr(tl, k)[0])
-            for k in stt.Tallies._fields})
-        es_l = jax.tree.map(lambda x: x[0], es)
-        x_grid = jnp.asarray(grids.x_grid)
-        tcv = jnp.asarray(grids.tcuts).astype(jnp.float32)
-        st, tl_l, oob = ps.mega_segment_traced(
-            st, tl_l, x_grid, xg, zs, et, tail, tcv, seed_f, sc, ss,
-            band, n_cells_pad, n_steps, interpret=interpret)
-        es_l = finish_particles(st, es_l, grids, sc, ss)
-        # f64 keeps the psum on a supported reduce dtype; exact to 2^53
-        nsteps = jax.lax.psum(
-            jnp.sum(st.nsteps.astype(jnp.float64)), DP_AXIS)
-        shard_b = st.weight.shape[0]
-        nt_l = (n_target // size
-                + (d < n_target % size).astype(n_target.dtype))
-        st, n_new_l = split_on_device(st, nt_l, key,
-                                      lane_offset=d * shard_b)
-        n_new = jax.lax.psum(n_new_l, DP_AXIS)
-        oob = jax.lax.psum(oob, DP_AXIS)
-        tl = stt.Tallies(**{
-            k: (getattr(tl_l, k) if k == "rec"
-                else getattr(tl_l, k)[None])
-            for k in stt.Tallies._fields})
-        es = jax.tree.map(lambda x: x[None], es_l)
-        return st, tl, es, n_new, nsteps, oob
-
-    return jax.jit(seg, donate_argnums=(0, 1, 2))
-
-
-def run_ion_mega_hybrid_sharded(seg_fn, mesh: Mesh, state, tal_st,
-                                esc_st, grids, sc, ss,
-                                pcuts, pcut_prevs, n_targets, seg_keys):
-    """Mesh twin of ops/pallas_step.run_ion_mega_hybrid: drive the
-    whole pcut ladder as a host loop of sharded hybrid segment
-    programs, async-dispatched via the shared
-    ops/pallas_step.drive_ladder_async (chain-death early break on the
-    psum'd n_new — a dead segment is a structural no-op).
-
-    Returns (state, tal, esc, n_new[n_seg], nsteps[n_seg], oob) with
-    the stacked accumulators already reduced over shards."""
-    from ..ops import pallas_step as ps
-
-    xg, zs, et, tail = ps._mega_prep(
-        jnp.asarray(grids.x_grid), jnp.asarray(grids.ux),
-        jnp.asarray(grids.gamma_sf), jnp.asarray(grids.gamma_ef),
-        jnp.asarray(grids.btot), jnp.asarray(grids.eps_target),
-        jnp.asarray(grids.recv_prefix), nb=int(ss.nb))
-    if jax.process_count() > 1:
-        # multi-process jit rejects process-local committed arrays;
-        # hand the (tiny, host-identical) prep products to jit as
-        # numpy so it auto-places them against the replicated specs
-        xg, zs, et, tail = jax.tree.map(np.asarray, (xg, zs, et, tail))
-
-    n_seg = len(pcuts)
-    pcuts_h = np.asarray(pcuts, np.float64)
-    prevs_h = np.asarray(pcut_prevs, np.float64)
-    targets_h = np.asarray(n_targets, np.int64)
-    oob_acc = jnp.zeros((3,), jnp.float64)
-    p_dtype = state.pb.dtype
-
-    def dispatch(i):
-        nonlocal state, tal_st, esc_st, oob_acc
-        sci = sc._replace(
-            pcut=jnp.asarray(pcuts_h[i], p_dtype),
-            pcut_prev=jnp.asarray(prevs_h[i], p_dtype))
-        state, tal_st, esc_st, n_new, nsteps, oob = seg_fn(
-            state, tal_st, esc_st, grids, sci, xg, zs, et, tail,
-            jnp.float32(i + 1), jnp.asarray(targets_h[i], jnp.int32),
-            seg_keys[i])
-        oob_acc = oob_acc + oob
-        return n_new, nsteps
-
-    n_cells = int(
-        (ss.n_mom + 1) * 2 * (ss.n_theta + 1))
-    band, _acc, _fp = ps._tally_geom(n_cells, ss.mega_band)
-
-    def oob_check(i):
-        ps.check_oob(np.asarray(oob_acc), n_cells, band=band, seg=i)
-
-    n_new_out, nsteps_out = ps.drive_ladder_async(dispatch, n_seg,
-                                                  check=oob_check)
-    tal, esc = reduce_ion_accumulators(tal_st, esc_st)
-    return (state, tal, esc, jnp.asarray(n_new_out),
-            jnp.asarray(nsteps_out), oob_acc)
 
 
 def shard_state(state: stt.ParticleState, mesh: Mesh) -> stt.ParticleState:

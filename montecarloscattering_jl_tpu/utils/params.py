@@ -1,6 +1,6 @@
 """Array-capacity and regime parameters.
 
-Mirrors /root/reference/src/parameters.jl:1-33.  In the TPU framework
+Mirrors parameters.jl:1-33 of the reference.  In this framework
 most array extents are derived from the config at trace time (static
 shapes for XLA), so these act as validated ceilings / defaults rather
 than Fortran-style fixed allocations.

@@ -45,7 +45,7 @@ class PhaseTimers:
 
 @contextlib.contextmanager
 def jax_trace(trace_dir: str | None):
-    """Optional XLA/TPU profiler trace around a region (viewable with
+    """Optional JAX profiler trace around a region (viewable with
     tensorboard or xprof)."""
     if not trace_dir:
         yield

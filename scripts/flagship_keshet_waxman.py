@@ -17,14 +17,11 @@ Usage: python scripts/flagship_keshet_waxman.py [--per-pcut 8192]
 Asserts the fitted index against s_KW within MC tolerance and prints
 the measurement; exits nonzero on failure.
 
-Measured 2026-08-16 on one TPU v5e chip (defaults, f32 momenta):
-    s_KW = 4.202 (gamma0 = 5, beta2 = 0.3204)
-    fitted dN/dp slope -2.442 over 11 bins => s_fit = 4.442
-    |s_fit - s_KW| = 0.240  -> PASSED (tol 0.25)
-    567M pushes, 130 s wall
-The pitch-diffusion spectrum is far steeper than the LAS-regime
-result the default N_g ~ 2e3 gives (s ~ 3.1, tests/test_relativistic)
-and lands on the Keshet-Waxman index within MC noise — the flagship
+At the defaults s_KW = 4.202 (gamma0 = 5, beta2 = 0.3204) and the
+fit has landed at s_fit 4.44 (|s_fit - s_KW| = 0.24, tol 0.25).  The
+pitch-diffusion spectrum is far steeper than the LAS-regime result
+the default N_g ~ 2e3 gives (s ~ 3.1, tests/test_relativistic) and
+lands on the Keshet-Waxman index within MC noise — the flagship
 relativistic-physics credibility check (reference diagnostic:
 io.jl:147-151).
 """
@@ -53,19 +50,18 @@ ap.add_argument("--pmax", type=float, default=300.0,
                 "fitted index from genuine scattering physics")
 ap.add_argument("--f64", action="store_true")
 args = ap.parse_args()
-# NOTE: host-split segments (fused=False below) keep each device
-# program short — the TPU runtime kills long-running single programs
-# ("kernel fault" / worker restart; see scripts/repro_fused_128k.py),
-# and a fused 8-pcut ladder at a 2e5-step cap is exactly that.
+# host-split segments (fused=False below): one program per pcut
+# segment instead of a fused 8-pcut ladder at a 2e5-step cap
 
 # must land before the package reads it
 os.environ["MCS_MAX_HELIX_STEPS"] = str(args.cap)
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser(
-    os.environ.get("MCS_CACHE_DIR", "~/.cache/mcs_xla")))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
+
+enable_compile_cache()
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402

@@ -1,6 +1,6 @@
 """Keshet-Waxman N_g sweep: quantify the finite-N_g systematic.
 
-VERDICT r4 item 5: the single-point acceptance (s_fit 4.427 vs s_KW
+The single-point acceptance (s_fit 4.427 vs s_KW
 4.202 at tol 0.25) rode the tolerance edge because the per-scatter
 deflection dtheta ~ sqrt(12 pi / (N_g eta)) converges to the
 pitch-diffusion limit only as N_g -> inf (scattering.jl:60-75 is the
@@ -12,9 +12,8 @@ N_g -> inf, and stores the sweep as a JSON golden artifact.
 The helix-step cap scales WITH N_g (cap = orbits * N_g) so every
 point gets the same diffusive-orbit budget — at fixed cap a larger
 N_g silently truncates acceleration (fewer gyro-orbits per segment)
-and steepens the spectrum, which contaminated the round-7b
-measurements.  Deep caps are safe now that drains are host-chunked
-(ops/pallas_step._get_launch).
+and steepens the spectrum.  Deep caps run as host-chunked drains
+(ops/step.run_segment_chunked).
 
 Usage: python scripts/flagship_kw_sweep.py [--ngs 4000,8000,16000,32000]
        [--per-pcut 8192] [--orbits 25] [-o kw_sweep.json]

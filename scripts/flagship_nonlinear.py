@@ -1,17 +1,10 @@
-"""Flagship single-chip benchmark: nonlinear smoothed shock to
-convergence at production batch size (BASELINE.md config 2).
+"""Flagship single-device run: nonlinear smoothed shock to
+convergence at production batch size (BASELINE.md config 2), with
+wall time, pushes/s, per-iteration convergence and the phase timers.
+The convergence signal is the max pxx_flux / far-upstream-flux
+overshoot, which should decay toward 1 over the iterations.
 
-Measured 2026-08-16 on one TPU v5e chip (f32 momenta, fused pcut
-ladder, warm compile cache):
-
-    wall = 924 s for 10 iterations
-    4.15 M trajectories, 10.2 B pushes (11.1 M pushes/s sustained)
-    timers: transport 814 s, reductions 99 s, smoothing+io < 1 s
-    convergence: max pxx_flux / far-upstream-flux overshoot decays
-    5.38 (iter 1) -> 1.38 -> 1.13 -> 1.09 -> 1.05 (iter 9), with the
-    relaxation-damped even iterations pinned at 1.000
-
-Usage (defaults reproduce the numbers above):
+Usage:
 
     python scripts/flagship_nonlinear.py [--per-pcut 65536] [--iters 10]
 """
@@ -24,11 +17,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-import jax
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser(
-    os.environ.get("MCS_CACHE_DIR", "~/.cache/mcs_xla")))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 
 def main() -> None:

@@ -1,14 +1,7 @@
-"""Flagship single-chip benchmark: relativistic p+e shock with the
-full multi-messenger SED (BASELINE.md configs 3+4).
-
-Measured 2026-08-16 on one TPU v5e chip (f32 momenta, fused pcut
-ladder, warm compile cache), 16384 lanes/pcut on the gamma0 = 5
-example config:
-
-    wall = 139.5 s  (transport 104 s, reductions 33 s, emission 1.0 s)
-    296 737 trajectories, 371 M pushes
-    SED: 192 nonzero bins spanning 1e-13 ... 7.9e6 MeV
-         (synchrotron radio->X, IC MeV, pion-decay GeV)
+"""Flagship single-device run: relativistic p+e shock with the full
+multi-messenger SED (BASELINE.md configs 3+4) — synchrotron radio to
+X-ray, inverse Compton, pion-decay gamma rays — with wall time, the
+phase timers and the SED's nonzero span.
 
 Usage:
 
@@ -23,11 +16,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-import jax
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser(
-    os.environ.get("MCS_CACHE_DIR", "~/.cache/mcs_xla")))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 
 def main() -> None:
@@ -85,7 +77,7 @@ def main() -> None:
             print("SED: EMPTY (no nonzero bins)")
             ok = False
 
-        # ---- in-tree physics checks (VERDICT r4 item 4) ----------------
+        # ---- in-tree physics checks -----------------------------------
         setup = res.setup
         i_el = next(i for i, s in enumerate(cfg.species)
                     if s.is_electron)

@@ -1,10 +1,10 @@
 """Offline probe of the relativistic per-zone flux solve against
-recorded on-chip smoothing inputs (MCS_SMOOTH_DUMP npz files).
+recorded smoothing inputs (MCS_SMOOTH_DUMP npz files).
 
 Replays models/smoothing.new_velocity_profile zone by zone and reports
 where the momentum/energy solves go negative or clamp, so solver
 conditioning can be developed without re-running the science workload
-(VERDICT r4 item 1: the gamma0=5 fixed point froze at iteration 2).
+(the gamma0=5 fixed point once froze at iteration 2).
 
 Usage: python scripts/probe_smoothing_solve.py smooth_dumps_r5/smooth_inputs_iter02.npz
 """

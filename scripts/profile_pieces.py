@@ -14,8 +14,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", os.path.expanduser(
-    os.environ.get("MCS_CACHE_DIR", "~/.cache/mcs_xla")))
+
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

@@ -24,9 +24,12 @@ from montecarloscattering_jl_tpu.models.injection import init_pop  # noqa: E402
 from montecarloscattering_jl_tpu.ops import state as stt  # noqa: E402
 from montecarloscattering_jl_tpu.ops import step as stp  # noqa: E402
 from montecarloscattering_jl_tpu.utils import load_config  # noqa: E402
+from montecarloscattering_jl_tpu.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
 
 def main(n_pts=100, seed=3):
+    enable_compile_cache()
     # the DSA test config (baseline.toml ships the reference's
     # no-scatter/no-DSA smoke switches, mc_in.toml:132-139, under
     # which lanes just reflect at the shock)

@@ -8,15 +8,14 @@ global mesh spans num_procs x MCS_MH_DEVS.  Every process builds the
 identical full population (deterministic seeds; lane keys derive from
 GLOBAL lane indices) and contributes its local shards via
 jax.make_array_from_callback.  The tally psum crosses the process
-boundary — the DCN analogue.  Process 0 writes the finalized tallies
-for the parent to compare against the single-process run (itself this
-worker with num_procs=1, MCS_MH_DEVS=8: the hybrid stage needs the
-MCS_MEGA_ROWS pin below, which only a fresh interpreter can apply).
+boundary.  Process 0 writes the finalized tallies for the parent to
+compare against the single-process run (itself this worker with
+num_procs=1, MCS_MH_DEVS=8, so both sides run the same 8-shard mesh).
 
-Stage 1: the XLA sharded segment.  Stage 2: the megakernel hybrid
-ladder (the DEFAULT multi-chip engine) — per-shard Pallas drive in
-interpret mode, stacked accumulators globalized over the processes,
-one cross-process reduction.
+Stage 1: the sharded segment.  Stage 2: the mesh pcut ladder the
+engine runs under --devices N — sharded drains with the population
+gathered to every host between segments and split there (ops/cuts),
+tallies psum'd per segment.
 """
 
 import os
@@ -27,9 +26,6 @@ os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "")
     + f" --xla_force_host_platform_device_count={_DEVS}")
 os.environ["JAX_PLATFORMS"] = "cpu"
-# small megakernel blocks for the hybrid-ladder stage (must land
-# before the process's first ops.pallas_step import)
-os.environ["MCS_MEGA_ROWS"] = "8"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -85,77 +81,82 @@ def main(coordinator: str, num_procs: int, proc_id: int, out: str):
     print(f"proc {proc_id} OK: {jax.process_count()} processes, "
           f"{jax.device_count()} devices, mesh {mesh.size}", flush=True)
 
-    # ---- stage 2: the DEFAULT multi-chip engine (megakernel hybrid
-    # ladder) across the process boundary -------------------------------
-    hybrid_out = _run_hybrid_stage(mesh)
+    # ---- stage 2: the mesh pcut ladder across the process boundary ----
+    ladder_out = _run_ladder_stage(mesh)
     if proc_id == 0:
         base = np.load(out)
-        np.savez(out, **dict(base), **hybrid_out)
-    print(f"proc {proc_id} hybrid OK", flush=True)
+        np.savez(out, **dict(base), **ladder_out)
+    print(f"proc {proc_id} ladder OK", flush=True)
 
 
-def _run_hybrid_stage(mesh):
-    """One split-free hybrid-ladder segment over the global mesh
-    (interpret-mode megakernel per shard, stacked per-shard
-    accumulators globalized with parallel.multihost.globalize, one
-    cross-process reduction per ion).  Returns replicated results as
+def _gather_state(state):
+    """Global lane-sharded state -> the full population as host numpy
+    on every process (the host-split loop's per-segment sync)."""
+    from jax.experimental import multihost_utils
+
+    data = state._replace(key=jax.random.key_data(state.key))
+    return jax.tree.map(
+        lambda x: np.asarray(multihost_utils.process_allgather(
+            x, tiled=True)), data)
+
+
+def _run_ladder_stage(mesh):
+    """Two pcut segments of the mesh host-split ladder over the global
+    mesh: sharded drain (sharded_run_segment), host split of the SAVED
+    lanes (ops/cuts.pcut_split, identical on every process), sharded
+    drain of the split population.  Returns replicated results as
     numpy."""
     import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
 
     import __graft_entry__ as ge
-    from montecarloscattering_jl_tpu.ops import pallas_step as ps
     from montecarloscattering_jl_tpu.ops import state as stt
-    from montecarloscattering_jl_tpu.ops.finish import EscapeTallies
+    from montecarloscattering_jl_tpu.ops.cuts import pcut_split
     from montecarloscattering_jl_tpu.parallel.multihost import (
-        global_state, globalize, replicated)
+        global_state)
     from montecarloscattering_jl_tpu.parallel.shard import (
-        DP_AXIS, _stacked_tally_spec, run_ion_mega_hybrid_sharded,
-        sharded_hybrid_seg)
+        sharded_run_segment)
     from montecarloscattering_jl_tpu.utils.params import MAX_HELIX_STEPS
 
-    assert ps._ROWS * ps.LANE == 1024, "MCS_MEGA_ROWS pin missed"
-    batch = mesh.size * ps._ROWS * ps.LANE
-    setup, state, tal, grids, sc, ss = ge._build(batch=batch,
-                                                 p_dtype=jnp.float32)
+    batch = 256
+    setup, state, tal, grids, sc, ss = ge._build(batch=batch)
+    cfg = setup.cfg
     state = state._replace(
-        nsteps=jnp.full(batch, MAX_HELIX_STEPS - 8, jnp.int32))
-    esc = EscapeTallies.zeros(setup.bins.n_mom, setup.bins.n_theta)
-
+        nsteps=jnp.full(batch, MAX_HELIX_STEPS - 400, jnp.int32))
     npify = lambda t: jax.tree.map(np.asarray, t)
-    tal_h, esc_h = npify(tal), npify(esc)
-    tal_st = stt.Tallies(**{
-        k: (tal_h.rec if k == "rec"
-            else np.zeros((mesh.size,) + getattr(tal_h, k).shape,
-                          getattr(tal_h, k).dtype))
-        for k in stt.Tallies._fields})
-    esc_st = jax.tree.map(
-        lambda x: np.zeros((mesh.size,) + x.shape, x.dtype), esc_h)
-    tal_g = globalize(tal_st, _stacked_tally_spec(), mesh)
-    esc_g = globalize(esc_st,
-                      jax.tree.map(lambda _: P(DP_AXIS), esc_st), mesh)
+    tal_h, grids = npify(tal), npify(grids)
+    seg = sharded_run_segment(mesh, ss)
 
-    keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
-        jax.random.key(5), jnp.arange(1, 2, dtype=jnp.uint32))
-    keys_g = replicated(keys, mesh)
-
-    seg = sharded_hybrid_seg(mesh, ss, tal_h.psd_diff.shape[0],
-                             n_steps=16, interpret=True)
-    out_state, out_tal, out_esc, n_new, nsteps, oob = (
-        run_ion_mega_hybrid_sharded(
-            seg, mesh, global_state(state, mesh), tal_g, esc_g,
-            npify(grids), npify(sc), ss, np.asarray([1e10]),
-            np.asarray([0.0]), np.asarray([batch]), keys_g))
-    # force-replicate so every process can fetch
-    rep = jax.jit(lambda t: t,
-                  out_shardings=jax.tree.map(
-                      lambda _: NamedSharding(mesh, P()), out_tal))
-    fin = stt.finalize_tallies(rep(out_tal))
+    n_new, nsteps, fins = [], [], []
+    # pcuts a few lanes reach within the 400 remaining steps
+    p_med = float(np.median(np.hypot(np.asarray(state.pb),
+                                     np.asarray(state.pperp))))
+    for i, pcut in enumerate((100.0 * p_med, 200.0 * p_med)):
+        sci = npify(sc._replace(pcut=jnp.asarray(pcut, sc.pcut.dtype)))
+        out_state, out_tal = seg(global_state(state, mesh), tal_h,
+                                 grids, sci)
+        fins.append(stt.finalize_tallies(out_tal))
+        host = _gather_state(out_state)
+        nsteps.append(int(host.nsteps.astype(np.int64).sum()))
+        split = pcut_split(host, batch, batch)
+        n_new.append(0 if split is None else split.n)
+        if split is None:
+            break
+        state = stt.init_state(
+            split.weight, np.hypot(split.pb, split.pperp), split.pb,
+            split.x, split.igrid, split.ux_prev, cfg.xn_per_fine,
+            setup.x_grid_stop, jax.random.key(11 + i), phi=split.phi,
+            downstream=split.downstream, inj=split.inj,
+            acctime=split.acctime, tcut=split.tcut, xn_per=split.xn_per)
+        state = state._replace(prp_x=jnp.asarray(split.prp_x))
+    assert n_new[0] > 0, "no lane reached the first pcut"
+    psd = sum(np.asarray(f.psd, np.float64) for f in fins)
+    ncross = sum(np.asarray(f.num_crossings) for f in fins)
+    pxx = sum(np.asarray(f.pxx_flux) for f in fins)
     return {
-        "h_psd": np.asarray(fin.psd),
-        "h_num_crossings": np.asarray(fin.num_crossings),
-        "h_pxx_flux": np.asarray(fin.pxx_flux),
-        "h_n_new": np.asarray(n_new),
+        "h_psd": psd,
+        "h_num_crossings": ncross,
+        "h_pxx_flux": pxx,
+        "h_n_new": np.asarray(n_new, np.int64),
         "h_nsteps": np.asarray(nsteps, np.uint64),
     }
 

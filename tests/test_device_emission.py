@@ -1,6 +1,6 @@
 """Device-side emission kernels (models/emission/device.py) vs the
 NumPy oracle, bin for bin, on a real electron+photon run's
-distributions (VERDICT round-3 item 9).
+distributions.
 """
 
 import os

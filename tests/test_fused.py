@@ -129,3 +129,43 @@ class TestXlaHybridLadder:
                 np.asarray(getattr(f2, name), np.float64),
                 np.asarray(getattr(f1, name), np.float64),
                 rtol=1e-5, atol=1e-30, err_msg=name)
+
+
+class TestFailFast:
+    def test_ladder_checks_at_sync_points(self, monkeypatch):
+        """drive_ladder_async must call check at every sync point so
+        an overflow raises within MCS_HYBRID_SYNC_EVERY segments."""
+        import jax.numpy as jnp
+
+        from montecarloscattering_jl_tpu.ops import fused_ion as fi
+
+        monkeypatch.setenv("MCS_HYBRID_SYNC_EVERY", "2")
+        calls = []
+
+        def dispatch(i):
+            return jnp.asarray(1, jnp.int32), jnp.asarray(10, jnp.int32)
+
+        def check(i):
+            calls.append(i)
+            if i >= 3:
+                raise RuntimeError(f"overflow by segment {i}")
+
+        with pytest.raises(RuntimeError, match="segment 3"):
+            fi.drive_ladder_async(dispatch, 16, check=check)
+        assert calls == [1, 3]   # sync points, not every segment
+
+    def test_dead_chain_still_checked_then_breaks(self, monkeypatch):
+        import jax.numpy as jnp
+
+        from montecarloscattering_jl_tpu.ops import fused_ion as fi
+
+        monkeypatch.setenv("MCS_HYBRID_SYNC_EVERY", "2")
+        calls = []
+
+        def dispatch(i):
+            return jnp.asarray(0, jnp.int32), jnp.asarray(0, jnp.int32)
+
+        n_new, _ = fi.drive_ladder_async(
+            dispatch, 8, check=calls.append)
+        assert calls == [1]      # checked once, then early-broke
+        assert (n_new == 0).all()

@@ -1,14 +1,14 @@
 """Mid-iteration (segment-boundary) checkpoint / resume
-(parallel/checkpoint.MidCheckpointer; SURVEY.md section 5.4, VERDICT r3
-item 6).
+(parallel/checkpoint.MidCheckpointer; SURVEY.md section 5.4).
 
 The reference's restart was never implemented
 (MonteCarloScattering.jl:462) and could at best restore iteration
-boundaries; at pod scale one species' transport ladder is the long
-pole, so the checkpoint has to cut INSIDE it.  These tests kill a run
-at a segment boundary and verify the resumed run reproduces the
-uninterrupted one bitwise on the host-split path and bitwise in
-interpret mode on the megakernel hybrid ladder.
+boundaries; at scale one species' transport ladder is the long pole,
+so the checkpoint has to cut INSIDE it.  These tests kill a run at a
+segment boundary and verify the resumed run reproduces the
+uninterrupted one bitwise on the host-split path, single-device and on
+a device mesh; the fused ladders have no host-visible boundaries and
+refuse a mid resume.
 """
 
 import os
@@ -94,6 +94,45 @@ class TestCadence:
             ck.maybe(1, lambda: {})
 
 
+def _cfg():
+    from montecarloscattering_jl_tpu.utils import load_config
+    c = load_config("tests/data/dsa_nonrel.toml")
+    c.n_itrs = 2
+    return c
+
+
+def _kill_at_first_mid(tmp_path, monkeypatch, **kw):
+    """Run until the first segment-boundary checkpoint, then stop;
+    returns (checkpoint path, mid path)."""
+    from montecarloscattering_jl_tpu.engine import run
+
+    ckpt = str(tmp_path / "ck.npz")
+    monkeypatch.setenv("MCS_MID_STOP_AFTER", "1")
+    with pytest.raises(MidCheckpointStop):
+        run(_cfg(), checkpoint=ckpt, mid_every=2, **kw)
+    monkeypatch.delenv("MCS_MID_STOP_AFTER")
+    mid = ckpt + ".mid"
+    assert os.path.exists(mid)
+    peek = load_mid_checkpoint(mid)
+    assert peek["mode"] == "host" and peek["next_seg"] == 2
+    return ckpt, mid
+
+
+def _assert_same_run(ref, res):
+    assert res.n_pushes == ref.n_pushes
+    assert res.n_trajectories == ref.n_trajectories
+    assert len(res.iterations) == len(ref.iterations)
+    a, b = ref.iterations[-1], res.iterations[-1]
+    np.testing.assert_array_equal(a.profile_after.ux_sk,
+                                  b.profile_after.ux_sk)
+    for fa, fb in zip(a.ion_finals, b.ion_finals):
+        np.testing.assert_array_equal(fa.psd, fb.psd)
+        np.testing.assert_array_equal(fa.dndp_cr, fb.dndp_cr)
+        np.testing.assert_array_equal(fa.zone_pop, fb.zone_pop)
+    assert a.gamma_downstream == b.gamma_downstream
+    assert a.q_esc_px == b.q_esc_px
+
+
 @pytest.mark.slow
 class TestKillAndResume:
     def test_host_split_bitwise(self, tmp_path, monkeypatch):
@@ -103,129 +142,36 @@ class TestKillAndResume:
         depends only on (seed, iter, ion, pcut), so a restored
         population continues on the identical trajectory set)."""
         from montecarloscattering_jl_tpu.engine import run
-        from montecarloscattering_jl_tpu.utils import load_config
 
-        def cfg():
-            c = load_config("tests/data/dsa_nonrel.toml")
-            c.n_itrs = 2
-            return c
-
-        ref = run(cfg(), fused=False)
-
-        ckpt = str(tmp_path / "ck.npz")
-        monkeypatch.setenv("MCS_MID_STOP_AFTER", "1")
-        with pytest.raises(MidCheckpointStop):
-            run(cfg(), fused=False, checkpoint=ckpt, mid_every=2)
-        monkeypatch.delenv("MCS_MID_STOP_AFTER")
-        mid = ckpt + ".mid"
-        assert os.path.exists(mid)
-        peek = load_mid_checkpoint(mid)
-        assert peek["mode"] == "host" and peek["next_seg"] == 2
-
-        res = run(cfg(), fused=False, checkpoint=ckpt, resume=mid,
+        ref = run(_cfg(), fused=False)
+        ckpt, mid = _kill_at_first_mid(tmp_path, monkeypatch,
+                                       fused=False)
+        res = run(_cfg(), fused=False, checkpoint=ckpt, resume=mid,
                   mid_every=2)
+        _assert_same_run(ref, res)
 
-        assert res.n_pushes == ref.n_pushes
-        assert res.n_trajectories == ref.n_trajectories
-        assert len(res.iterations) == len(ref.iterations)
-        a, b = ref.iterations[-1], res.iterations[-1]
-        np.testing.assert_array_equal(a.profile_after.ux_sk,
-                                      b.profile_after.ux_sk)
-        for fa, fb in zip(a.ion_finals, b.ion_finals):
-            np.testing.assert_array_equal(fa.psd, fb.psd)
-            np.testing.assert_array_equal(fa.dndp_cr, fb.dndp_cr)
-            np.testing.assert_array_equal(fa.zone_pop, fb.zone_pop)
-        assert a.gamma_downstream == b.gamma_downstream
-        assert a.q_esc_px == b.q_esc_px
+    def test_mesh_ladder_bitwise(self, tmp_path, monkeypatch):
+        """The mesh ladder (--devices N) splits on the host too: a
+        kill and resume on a 2-device mesh reproduces the
+        uninterrupted mesh run."""
+        from montecarloscattering_jl_tpu.engine import run
+        from montecarloscattering_jl_tpu.parallel import make_mesh
 
-    def test_hybrid_ladder_capture_resume_interpret(self, monkeypatch,
-                                                    tmp_path):
-        """Megakernel hybrid ladder: capture at a sync point, persist
-        through the real serializer, resume with start_seg/init_oob,
-        and compare final state + tallies bitwise against the
-        uninterrupted ladder (interpret mode)."""
-        import __graft_entry__ as ge
-        from montecarloscattering_jl_tpu.ops import pallas_step as ps
-        from montecarloscattering_jl_tpu.ops import state as stt
-        from montecarloscattering_jl_tpu.ops.finish import EscapeTallies
+        mesh = make_mesh(2)
+        ref = run(_cfg(), mesh=mesh)
+        ckpt, mid = _kill_at_first_mid(tmp_path, monkeypatch, mesh=mesh)
+        res = run(_cfg(), mesh=mesh, checkpoint=ckpt, resume=mid,
+                  mid_every=2)
+        _assert_same_run(ref, res)
 
-        monkeypatch.setenv("MCS_HYBRID_SYNC_EVERY", "1")
-        B = 512
-        setup, state, tal, grids, sc, ss = ge._build(
-            batch=B, p_dtype=jnp.float32)
+    def test_fused_ladder_refuses_mid_resume(self, tmp_path,
+                                             monkeypatch):
+        from montecarloscattering_jl_tpu.engine import run
 
-        def dup(tree):
-            # the hybrid seg program donates its inputs, so each
-            # ladder run needs fresh buffers
-            def c(x):
-                if jax.dtypes.issubdtype(
-                        getattr(x, "dtype", np.float32),
-                        jax.dtypes.prng_key):
-                    return jax.random.wrap_key_data(
-                        jnp.array(jax.random.key_data(x), copy=True))
-                return jnp.array(x, copy=True)
-            return jax.tree.map(c, tree)
-        n_seg = 3
-        pcut0 = float(sc.pcut)
-        pcuts = np.asarray([pcut0, pcut0 * 3.0, pcut0 * 9.0])
-        prevs = np.asarray([0.0, pcut0, pcut0 * 3.0])
-        targets = np.full((n_seg,), B, np.int64)
-        keys = jax.vmap(jax.random.fold_in, in_axes=(None, 0))(
-            jax.random.key(7), jnp.arange(1, n_seg + 1,
-                                          dtype=jnp.uint32))
-        esc = EscapeTallies.zeros(setup.bins.n_mom, setup.bins.n_theta)
-
-        full = ps.run_ion_mega_hybrid(
-            dup(state), dup(tal), esc, grids, sc, ss, pcuts, prevs,
-            targets, keys, n_steps=512, interpret=True)
-
-        path = str(tmp_path / "mid.ckpt")
-
-        def capture(i, st, tl, es, oob, n_new, nsteps):
-            if i == 0:
-                save_mid_checkpoint(path, dict(
-                    state=st, tal=tl, esc=es, oob=np.asarray(oob),
-                    n_new=n_new, nsteps=nsteps))
-
-        esc2 = EscapeTallies.zeros(setup.bins.n_mom,
-                                   setup.bins.n_theta)
-        ps.run_ion_mega_hybrid(
-            dup(state), dup(tal), esc2, grids, sc, ss, pcuts, prevs,
-            targets, keys, n_steps=512, interpret=True,
-            capture=capture)
-        pk = load_mid_checkpoint(path)
-        n_new0 = pk["n_new"]
-
-        st0 = stt.ParticleState(*[jnp.asarray(x)
-                                  for x in pk["state"]])
-        resumed = ps.run_ion_mega_hybrid(
-            st0, stt.Tallies(*[jnp.asarray(x) for x in pk["tal"]]),
-            EscapeTallies(*[jnp.asarray(x) for x in pk["esc"]]),
-            grids, sc, ss, pcuts, prevs, targets, keys,
-            n_steps=512, interpret=True, start_seg=1,
-            init_oob=pk["oob"])
-
-        for name, a, b in (("state", full[0], resumed[0]),
-                           ("tal", full[1], resumed[1]),
-                           ("esc", full[2], resumed[2])):
-            fa = jax.tree.leaves(jax.tree.map(
-                lambda x: np.asarray(jax.random.key_data(x))
-                if jax.dtypes.issubdtype(
-                    getattr(x, "dtype", np.float32),
-                    jax.dtypes.prng_key) else np.asarray(x), a))
-            fb = jax.tree.leaves(jax.tree.map(
-                lambda x: np.asarray(jax.random.key_data(x))
-                if jax.dtypes.issubdtype(
-                    getattr(x, "dtype", np.float32),
-                    jax.dtypes.prng_key) else np.asarray(x), b))
-            for la, lb in zip(fa, fb):
-                np.testing.assert_array_equal(la, lb, err_msg=name)
-        # counters: resumed reports zeros below start_seg; segment 0's
-        # counters come from the capture
-        nf = np.asarray(full[3], np.int64)
-        nr = np.asarray(resumed[3], np.int64)
-        np.testing.assert_array_equal(nf[1:], nr[1:])
-        assert nf[0] == n_new0[0]
+        ckpt, mid = _kill_at_first_mid(tmp_path, monkeypatch,
+                                       fused=False)
+        with pytest.raises(ValueError, match="host-split loop"):
+            run(_cfg(), checkpoint=ckpt, resume=mid, mid_every=2)
 
 
 if __name__ == "__main__":

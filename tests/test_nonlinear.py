@@ -81,9 +81,9 @@ class TestReductions:
             psd, therm, bins, e0, gam, ux, gamma0, want_ef=True)
         ef_norm = red.ef_zone_norm(psd, therm, zone_pop, ncross, 1.0)
         d2n_ef = np.asarray(d2n_ef, np.float64) * ef_norm[None, None, :]
-        # the fused program runs in f32 on the device (TPU f64 is
-        # emulated); compare against the split oracles on the SAME
-        # f32 inputs, with tolerance for f32 summation order
+        # the fused program runs in f32 on the device; compare
+        # against the split oracles on the SAME f32 inputs, with
+        # tolerance for f32 summation order
         want_cr = np.asarray(red.dndp_cr(
             jnp.asarray(psd, jnp.float32), bins, e0, gam, gamma0))
         want_th = np.asarray(red.dndp_cr(

@@ -1,7 +1,7 @@
 """Overlapped per-species reductions (engine/driver.py) must be
 bitwise identical to the synchronous order.
 
-VERDICT r3 item 2: species i's reduction finish() — device fetch +
+Species i's reduction finish() — device fetch +
 f64 host normalization — runs on a worker thread while species i+1's
 transport dispatches.  Same math, same inputs, same f64 host order,
 so every reduction product must match the MCS_OVERLAP_REDUCE=0 run

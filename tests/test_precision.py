@@ -74,3 +74,131 @@ class TestF32Path:
         assert s2.x.dtype == jnp.float64
         assert s2.acctime.dtype == jnp.float64
         assert s2.prp_x.dtype == jnp.float64
+
+
+def _dot_generals(jaxpr):
+    """Every dot_general equation in a (closed) jaxpr, sub-jaxprs of
+    scans, conds, while loops and nested jits included."""
+    import jax
+
+    found = []
+
+    def walk(j):
+        for eqn in j.eqns:
+            if eqn.primitive.name == "dot_general":
+                found.append(eqn)
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
+
+    walk(jaxpr.jaxpr)
+    return found
+
+
+def _is_highest(eqn):
+    from jax import lax
+    prec = eqn.params["precision"]
+    if isinstance(prec, tuple):
+        return all(p == lax.Precision.HIGHEST for p in prec)
+    return prec == lax.Precision.HIGHEST
+
+
+def _step_inputs(p_dtype=jnp.float32, batch=64):
+    import __graft_entry__ as ge
+    return ge._build(batch=batch, p_dtype=p_dtype)
+
+
+def _case_step_zone_gather():
+    import jax
+    from montecarloscattering_jl_tpu.ops import step as stp
+    setup, state, tal, grids, sc, ss = _step_inputs()
+    return jax.make_jaxpr(
+        lambda st, tl: stp.helix_step(st, tl, grids, sc, ss))(state, tal)
+
+
+def _case_flush_range_contraction():
+    import jax
+    from montecarloscattering_jl_tpu.ops import step as stp
+    setup, state, tal, grids, sc, ss = _step_inputs()
+    return jax.make_jaxpr(lambda tl: stp._flush_records(tl, ss))(tal)
+
+
+def _bins_and_profile():
+    setup = build_setup(load_config("tests/data/dsa_nonrel.toml"))
+    return setup, setup.bins, setup.profile
+
+
+def _case_reduce_dn_transformed():
+    import jax
+    from montecarloscattering_jl_tpu.ops import reduce as red
+    setup, bins, _ = _bins_and_profile()
+    psd_z = jnp.ones((bins.n_mom + 1, bins.n_theta + 1), jnp.float32)
+    return jax.make_jaxpr(
+        lambda p: red._dn_transformed(
+            p, jnp.float32(1.5), K.MP_C2, jnp.asarray(bins.mom_edges),
+            jnp.asarray(bins.cos_bounds()),
+            jnp.asarray(bins.mom_bounds_log), bins.n_mom, bins.n_theta))(
+        psd_z)
+
+
+def _case_reduce_ion_prog():
+    import jax
+    from montecarloscattering_jl_tpu.ops import reduce as red
+    setup, bins, prof = _bins_and_profile()
+    psd = jnp.ones((bins.n_mom + 1, bins.n_theta + 1, setup.nb),
+                   jnp.float32)
+    return jax.make_jaxpr(
+        lambda p, t: red.ion_reduce_device(
+            p, t, bins, K.MP_C2, prof.gamma_sf, prof.ux_sk,
+            setup.cfg.gamma0, want_ef=True, fetch=False))(psd, psd)
+
+
+def _case_emission_ic():
+    import jax
+    from montecarloscattering_jl_tpu.models.emission.device import (
+        ic_grid_device)
+    from montecarloscattering_jl_tpu.models.emission.inverse_compton \
+        import cmb_photon_field
+    p_edges = jnp.asarray(np.logspace(-20, -14, 21))
+    alpha = jnp.asarray(np.logspace(-12, -3, 16))
+    a1, n_ph = cmb_photon_field(0.1)
+    ne = jnp.ones((5, 20), jnp.float64)
+    return jax.make_jaxpr(
+        lambda n: ic_grid_device(n, p_edges, alpha,
+                                 (jnp.asarray(a1), jnp.asarray(n_ph)),
+                                 K.ME_CGS * K.C_CGS, 1.0, 1.0))(ne)
+
+
+def _case_emission_pion():
+    import jax
+    from montecarloscattering_jl_tpu.models.emission.device import (
+        pion_grid_device)
+    p_edges = np.logspace(-15, -11, 21)
+    e_gamma = np.logspace(-6, 1, 12)
+    counts = jnp.ones((5, 20), jnp.float64)
+    return jax.make_jaxpr(
+        lambda c: pion_grid_device(c, p_edges, e_gamma, np.ones(5), 1.0,
+                                   K.MP_C, 1.0))(counts)
+
+
+MAIN_PATH_MATMULS = {
+    "step_zone_gather": _case_step_zone_gather,
+    "flush_range_contraction": _case_flush_range_contraction,
+    "reduce_dn_transformed": _case_reduce_dn_transformed,
+    "reduce_ion_prog": _case_reduce_ion_prog,
+    "emission_ic": _case_emission_ic,
+    "emission_pion": _case_emission_pion,
+}
+
+
+class TestMatmulPrecisionPin:
+    """Every matrix product on the main path asks for HIGHEST
+    precision, so a GPU never runs it with TF32 operands (10 mantissa
+    bits).  The jaxpr carries the request to XLA on every backend."""
+
+    @pytest.mark.parametrize("case", list(MAIN_PATH_MATMULS))
+    def test_dot_generals_pinned_highest(self, case):
+        dots = _dot_generals(MAIN_PATH_MATMULS[case]())
+        assert dots, f"{case}: no matrix product traced"
+        loose = [str(e.params["precision"]) for e in dots
+                 if not _is_highest(e)]
+        assert not loose, f"{case}: unpinned products {loose}"

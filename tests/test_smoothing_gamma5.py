@@ -1,9 +1,9 @@
-"""Relativistic smoothing against recorded gamma0=5 on-chip tallies.
+"""Relativistic smoothing against recorded gamma0=5 tallies.
 
 tests/data/smooth_gamma5/ holds the exact solver inputs (pxx_flux,
 energy_flux, Gamma_grid, PSD pressures, profile) captured via
 MCS_SMOOTH_DUMP from the 4x-statistics gamma0=5 --dsa science run
-(v5e, 2026-08-21) whose iterations 4-5 tripped the round-7
+whose iterations 4-5 tripped the round-7
 degenerate-solve guard and froze the profile.
 
 Root cause (round 5): the far-downstream flux tallies are structurally
